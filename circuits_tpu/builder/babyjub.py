@@ -46,7 +46,7 @@ def add_point(p1, p2):
 # multiply internals: (X, Y, Z, T) with x = X/Z, y = Y/Z, T = XY/Z. One
 # inversion per multiply instead of two per ADD — the affine ladder cost
 # ~80µs/add in `pow(.., -1, P)` and dominated host signing/population at
-# production scale (SCALING.md §2). The unified formula is complete on
+# production scale. The unified formula is complete on
 # BabyJubJub (a = 168700 is a QR mod p, d = 168696 is not).
 
 _EXT_IDENTITY = (0, 1, 1, 0)
@@ -102,7 +102,7 @@ def mul_base8(k: int):
     ~32 extended-coordinate adds + one inversion instead of ~500 affine
     double+adds. The host signer does two B8 multiplies per signature
     (prv2pub + the nonce point) — the batch-preparation hot path at
-    production scale (SCALING.md §2)."""
+    production scale."""
     global _BASE8_COMB
     if _BASE8_COMB is None:
         tab = []

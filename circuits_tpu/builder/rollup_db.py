@@ -11,7 +11,7 @@ im* intermediary chains that make the circuit's tx lanes batch-parallel
 (src/rollup-main.circom:93-99).
 
 This layer is deliberately sequential host code: the root chain is the
-inherently serial part of witness generation; the TPU engine consumes its
+inherently serial part of witness generation; the device engine consumes its
 outputs with all lanes independent.
 """
 

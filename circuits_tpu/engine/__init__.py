@@ -1,5 +1,5 @@
 """Witness engine: batch-builder inputs -> batched device arrays ->
-jitted circuit evaluation (the TPU replacement for the reference's native
+jitted circuit evaluation (the accelerator replacement for the reference's native
 witness calculator, tools/helpers/actions.js:98-146)."""
 
 from .witness import pack_rollup_inputs, RollupEngine, WithdrawEngine

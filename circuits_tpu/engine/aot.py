@@ -87,13 +87,11 @@ def export_rollup_main(n_tx: int, n_levels: int, max_l1_tx: int,
     fn = jax.jit(partial(rollup_main, n_tx=n_tx, n_levels=n_levels,
                          max_l1_tx=max_l1_tx, max_fee_tx=max_fee_tx))
     shapes = rollup_input_shapes(n_tx, n_levels, max_l1_tx, max_fee_tx)
-    # the compute path lowers to Mosaic (tpu_custom_call) on TPU and the
-    # fr_ffi custom calls on CPU — both are this package's own kernels,
-    # so replaying them is safe by construction
+    # on CPU the compute path lowers to the fr_ffi custom calls — this
+    # package's own kernels, so replaying them is safe by construction
     checks = [jex.DisabledSafetyCheck.custom_call(t)
-              for t in ("tpu_custom_call", "fr_mont_mul", "fr_add",
-                        "fr_sub", "fr_pow", "fr_poseidon",
-                        "sha256_blocks", "Sharding")]
+              for t in ("fr_mont_mul", "fr_add", "fr_sub", "fr_pow",
+                        "fr_poseidon", "sha256_blocks", "Sharding")]
     exp = jex.export(fn, disabled_checks=checks)(shapes)
     blob = exp.serialize()
     p = Path(path) if path else aot_path(n_tx, n_levels, max_l1_tx,

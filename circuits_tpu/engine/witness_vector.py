@@ -3,7 +3,7 @@
 The reference's native witness calculator writes every circuit signal to
 `witness.json` / `.wtns`, which snarkjs consumes for Groth16 proving
 (/root/reference/tools/helpers/actions.js:132-146, :168-185). This module
-is that artifact for the TPU engine: a COMPLETE, canonically-ordered,
+is that artifact for this engine: a COMPLETE, canonically-ordered,
 signal-indexed vector of every value the monomorphized circuit evaluates.
 
 Canonical ordering (documented contract; does not reuse circom's `.sym`

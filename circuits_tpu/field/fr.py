@@ -1,12 +1,12 @@
-"""BN254 Fr arithmetic as batched TPU limb kernels.
+"""BN254 Fr arithmetic as batched 32-bit limb kernels.
 
-Design (TPU-first, no 64-bit integer ops):
+Design (32-bit integer lanes only):
   * A field element batch is a ``uint32`` array of shape ``(16, *batch)``:
     16 little-endian limbs of 16 bits each, limb axis leading so the batch
-    axes map onto TPU lanes.
+    axes are the contiguous, vectorized ones.
   * Products of two 16-bit limbs fit exactly in uint32; sums of many such
-    partial products stay below 2^32 (lazy-carry columns), which is the
-    whole reason for the 16x16-bit split — TPUs have no 64-bit multiplier.
+    partial products stay below 2^32 (lazy-carry columns), so no 64-bit
+    product is needed anywhere.
   * Multiplication is Montgomery (R = 2^256) using a vectorized CIOS-style
     reduction: one full schoolbook product into 32 lazy columns, then 16
     interleaved reduction steps.
@@ -243,36 +243,20 @@ _DIAG_IDX = np.add.outer(32 * np.arange(N_LIMBS),
 
 def mont_mul(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """a * b * R^{-1} mod p. Inputs canonical (< p), output canonical.
-    Dispatches to the native FFI kernel on the CPU backend (one
-    custom-call instruction, see fr_ffi.py) and to the XLA limb graph on
-    TPU."""
+    Dispatches to the platform's native kernel (one custom-call
+    instruction, see fr_ffi.py); the compact XLA limb graph is the
+    reference."""
     if fr_ffi.enabled():
         return fr_ffi.mont_mul(a, b)
-    return mont_mul_xla(a, b)
-
-
-_UNROLL_MM = None
-
-
-def _unroll_reduce() -> bool:
-    """TPU: fully unrolled straight-line Montgomery mul (XLA fuses it;
-    no 16-step while loop per multiply). CPU keeps the compact
-    fori_loop graph (compile cost; the FFI kernel is the CPU hot path
-    anyway). Override: CTPU_MM_UNROLL=0/1."""
-    global _UNROLL_MM
-    if _UNROLL_MM is None:
-        import os
-        v = os.environ.get("CTPU_MM_UNROLL", "auto")
-        if v == "auto":
-            _UNROLL_MM = jax.default_backend() == "tpu"
-        else:
-            _UNROLL_MM = v not in ("0", "false")
-    return _UNROLL_MM
+    return mont_mul_compact(a, b)
 
 
 def mont_mul_unrolled(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Straight-line schoolbook + CIOS reduction over limb lists (the
-    pallas_poseidon in-kernel formulation, at the XLA level)."""
+    """Straight-line schoolbook + CIOS reduction over limb lists: no
+    loop, so XLA fuses the whole multiply into one kernel."""
+    bshape = jnp.broadcast_shapes(a.shape[1:], b.shape[1:])
+    a = jnp.broadcast_to(a, (N_LIMBS,) + bshape)
+    b = jnp.broadcast_to(b, (N_LIMBS,) + bshape)
     ncols = 2 * N_LIMBS + 1
     cl = [None] * ncols
 
@@ -298,19 +282,9 @@ def mont_mul_unrolled(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     return _stack(limbs)
 
 
-def mont_mul_xla(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Pure-XLA limb formulation (the TPU path).
-
-    Broadcasts over batch axes. On TPU the whole multiply is unrolled
-    straight-line code (see _unroll_reduce); elsewhere it is structured
-    for small HLO footprint — one pad+gather+sum schoolbook and the 16
-    interleaved Montgomery reduction steps under fori_loop.
-    """
-    if _unroll_reduce():
-        bshape = jnp.broadcast_shapes(a.shape[1:], b.shape[1:])
-        a = jnp.broadcast_to(a, (N_LIMBS,) + bshape)
-        b = jnp.broadcast_to(b, (N_LIMBS,) + bshape)
-        return mont_mul_unrolled(a, b)
+def mont_mul_compact(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
+    """Small-HLO form: one pad+gather+sum schoolbook and the 16
+    interleaved Montgomery reduction steps under fori_loop."""
     bshape = jnp.broadcast_shapes(a.shape[1:], b.shape[1:])
     ncols = 2 * N_LIMBS + 1
     # 1) schoolbook product -> 33 lazy columns.
@@ -324,9 +298,9 @@ def mont_mul_xla(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     padw_hi[1] = (1, ncols - N_LIMBS - 1)   # row i: cols i+1..i+16
     rows = jnp.pad(lo, padw_lo) + jnp.pad(hi, padw_hi)  # (16, 33, *b)
     flat = rows.reshape((N_LIMBS * ncols,) + bshape)
+    # 16 terms of < 2^16 lo + 16 of < 2^16 hi per column: max < 2^21
     cols = jnp.sum(jnp.take(flat, jnp.asarray(_DIAG_IDX), axis=0),
-                   axis=0)  # (33, *batch); each < 16*2^32? no: < 2^32
-    # (16 terms of < 2^16 lo + 16 of < 2^16 hi per column: max < 2^21)
+                   axis=0)  # (33, *batch)
 
     # 2) interleaved Montgomery reduction: 16 sequential steps.
     n0 = np.uint32(N0)

@@ -1,16 +1,20 @@
-"""XLA:CPU FFI backend for Fr field ops (native/fr_ffi.cpp).
+"""Native FFI backend for Fr field ops: one custom call per field op.
 
-On the CPU backend (unit tests, the driver's virtual-mesh multichip dry
-run) every Montgomery multiply / modular add / sub lowers to ONE
-custom-call instruction backed by a 4x64-limb __int128 CIOS kernel,
-instead of the ~300-instruction inlined limb graph the TPU path uses.
-This is a compile-time weapon first (XLA:CPU compile cost is superlinear
-in HLO size) and a runtime win second.
+Every Montgomery multiply / modular add / sub / fixed-exponent power,
+every whole Poseidon permutation and every SHA-256 digest lowers to ONE
+custom-call instruction instead of a 16-bit limb graph of tens to
+thousands of HLO ops. This is a compile-time weapon first: XLA:CPU's
+compile cost is superlinear in graph size, and on an H100 XLA's GPU
+compiler had not finished the limb graph of the full RollupMain batch,
+with the compact multiply, after 1,180 s. The limb graphs in fr.py stay
+as the plain reference.
 
-The TPU path never touches this module's kernels: `enabled()` is True
-only when the process' default backend is CPU. Selection override:
-CTPU_FR_BACKEND=xla forces the pure-XLA limb path on CPU too (used by
-the test suite to cross-check both backends).
+Two libraries register the same targets, built from tracked sources at
+first use into gitignored shared objects:
+  cpu   native/fr_ffi.cpp with g++;
+  cuda  native/fr_cuda.cu with nvcc, for sm_90a (Hopper).
+Both run the per-lane code of native/fr_device.h. `enabled()` follows
+utils/backend.py; a library that fails to build raises.
 
 Native equivalent of the reference's ffiasm field library
 (reference: tools/helpers/actions.js:207-229).
@@ -20,14 +24,19 @@ from __future__ import annotations
 
 import ctypes
 import os
+import shutil
 import subprocess
 from pathlib import Path
 
 import numpy as np
 
-_ROOT = Path(__file__).resolve().parents[2]
-_SRC = _ROOT / "native" / "fr_ffi.cpp"
-_SO = _ROOT / "native" / "libfr_ffi.so"
+_NATIVE = Path(__file__).resolve().parents[2] / "native"
+_HEADER = _NATIVE / "fr_device.h"
+_LIBS = {
+    # platform: (source, shared object, XLA platform name)
+    "cpu": (_NATIVE / "fr_ffi.cpp", _NATIVE / "libfr_ffi.so", "cpu"),
+    "cuda": (_NATIVE / "fr_cuda.cu", _NATIVE / "libfr_cuda.so", "CUDA"),
+}
 
 _SYMBOLS = {
     "fr_mont_mul": "FrMontMul",
@@ -44,78 +53,81 @@ _SYMBOLS = {
 # auto-SPMD partitioner slice the constants and silently corrupt results.
 _BATCH_PARTITIONABLE = {"fr_mont_mul", "fr_add", "fr_sub", "fr_pow"}
 
-available = False
-_registered = False
+_registered: dict[str, str | None] = {}   # lib -> None, or why it failed
 
 
-build_error: str | None = None
-
-
-def _build() -> bool:
-    global build_error
-    if not _SRC.exists():
-        build_error = f"source missing: {_SRC}"
-        return False
-    if _SO.exists() and _SO.stat().st_mtime >= _SRC.stat().st_mtime:
-        return True
+def _compiler(lib: str, src: Path, out: Path) -> list[str]:
     import jax.ffi
 
+    inc = ["-I", jax.ffi.include_dir(), "-I", str(_NATIVE)]
+    if lib == "cpu":
+        return ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", *inc,
+                "-o", str(out), str(src)]
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-shared", "-Xcompiler", "-fPIC", *inc, "-o", str(out),
+            str(src)]
+
+
+def _build(lib: str) -> str | None:
+    """Build the library if it is missing or older than its sources.
+    Returns None on success, else the reason it failed."""
+    src, so, _ = _LIBS[lib]
+    newest = max(src.stat().st_mtime, _HEADER.stat().st_mtime)
+    if so.exists() and so.stat().st_mtime >= newest:
+        return None
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     try:
-        subprocess.run(
-            ["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-             "-I", jax.ffi.include_dir(), "-o", str(_SO), str(_SRC)],
-            check=True, capture_output=True, timeout=300)
-        return True
+        subprocess.run(_compiler(lib, src, tmp), check=True,
+                       capture_output=True, timeout=600)
+        os.replace(tmp, so)   # atomic: concurrent builders never see half
+        return None
     except subprocess.CalledProcessError as e:  # keep the compiler output
-        build_error = f"g++ failed: {e.stderr.decode(errors='replace')[-500:]}"
-        return False
+        return f"build failed: {e.stderr.decode(errors='replace')[-2000:]}"
     except Exception as e:
-        build_error = f"{type(e).__name__}: {e}"
-        return False
+        return f"{type(e).__name__}: {e}"
+    finally:
+        tmp.unlink(missing_ok=True)
 
 
-def _register() -> None:
-    global available, _registered
-    if _registered:
+def _register(lib: str) -> None:
+    if lib in _registered:
         return
-    _registered = True
-    if not _build():
-        return
-    import jax.ffi
+    error = _build(lib)
+    if error is None:
+        import jax.ffi
 
-    try:
-        lib = ctypes.CDLL(str(_SO))
-        for name, sym in _SYMBOLS.items():
-            jax.ffi.register_ffi_target(
-                name, jax.ffi.pycapsule(getattr(lib, sym)), platform="cpu")
-            if name in _BATCH_PARTITIONABLE:
-                try:
-                    jax.ffi.register_ffi_target_as_batch_partitionable(name)
-                except Exception:
-                    pass  # partitionability is an optimization, not required
-        available = True
-    except OSError:
-        return
-
-
-_enabled_cache: bool | None = None
+        _, so, platform = _LIBS[lib]
+        try:
+            handle = ctypes.CDLL(str(so))
+            for name, sym in _SYMBOLS.items():
+                jax.ffi.register_ffi_target(
+                    name, jax.ffi.pycapsule(getattr(handle, sym)),
+                    platform=platform)
+                if name in _BATCH_PARTITIONABLE:
+                    try:
+                        jax.ffi.register_ffi_target_as_batch_partitionable(
+                            name)
+                    except Exception:
+                        pass  # an optimization, not required
+        except (OSError, AttributeError) as e:
+            error = f"load failed: {e}"
+    _registered[lib] = error
 
 
 def enabled() -> bool:
-    """True iff Fr ops should lower to the FFI kernels in this process."""
-    global _enabled_cache
-    mode = os.environ.get("CTPU_FR_BACKEND", "auto")
-    if mode == "xla":
-        return False
-    if _enabled_cache is None:
-        import jax
+    """True iff Fr ops lower to the native custom calls in this process
+    (builds and registers the platform's library on first use)."""
+    from ..utils import backend
 
-        if jax.default_backend() != "cpu" and mode != "ffi":
-            _enabled_cache = False
-        else:
-            _register()
-            _enabled_cache = available
-    return _enabled_cache
+    lib = backend.native()
+    if lib is None:
+        return False
+    _register(lib)
+    if _registered[lib] is not None:
+        raise RuntimeError(f"native {lib} library unavailable: "
+                           f"{_registered[lib]}")
+    return True
 
 
 def _call(target: str, n_limbs: int, a, b):

@@ -1,6 +1,6 @@
 """Host-side (Python bigint) BN254 scalar-field reference arithmetic.
 
-This is the golden oracle for the TPU limb kernels in `fr.py`, and the
+This is the golden oracle for the device limb kernels in `fr.py`, and the
 arithmetic used by the host-side batch builder (`circuits_tpu.builder`).
 
 The field is the BN254/alt_bn128 *scalar* field Fr — the field circom 0.5.x

@@ -1,7 +1,7 @@
 """FeeAccumulator — first-match scatter-add of a tx fee into fee slots.
 
 Replicates /root/reference/src/fee-accumulator.circom:56-91. The circuit
-is a sequential isSelected carry chain over maxFeeTx steps; the TPU form
+is a sequential isSelected carry chain over maxFeeTx steps; the batched form
 is a vectorized first-match mask (match & no-earlier-match computed with
 an exclusive prefix-OR over the slot axis) — identical semantics, no scan.
 """

@@ -3,7 +3,7 @@
 Replicates /root/reference/src/rollup-tx-states.circom:39-314 (tx-type
 table at :41-54, processor-fnc table at :177-183, nullifier table at
 :250-258). All logic is elementwise boolean/mux over the tx-lane batch —
-pure VPU work that XLA fuses into neighbouring kernels.
+pure elementwise work that XLA fuses into neighbouring kernels.
 
 Inputs are canonical field arrays (16, B) (idx / addr / token / amount
 signals) — equality and is-zero tests happen in limb space.

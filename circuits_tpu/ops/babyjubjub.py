@@ -2,7 +2,7 @@
 
 Replicates circomlib's in-circuit gadgets (`EdDSAPoseidonVerifier`,
 `Bits2Point_Strict`; reference usage /root/reference/src/rollup-tx.circom:2,
-src/lib/utils-bjj.circom:2) as batched TPU kernels.
+src/lib/utils-bjj.circom:2) as batched limb kernels.
 
 Points are projective (X:Y:Z) with coordinates in Montgomery form, shape
 (16, *batch) each. The unified twisted-Edwards addition is complete on
@@ -287,28 +287,6 @@ def ay_sign_to_ax(ay, sign):
     return ax, ok & ~den_zero
 
 
-_EDDSA_BACKEND = None
-
-
-def _eddsa_backend() -> str:
-    """'pallas' (TPU fused kernel), 'interpret' (pallas interpreter, CPU
-    testing), or 'xla' (portable scan path). Resolved once from
-    $CTPU_EDDSA (auto -> pallas on TPU)."""
-    global _EDDSA_BACKEND
-    if _EDDSA_BACKEND is None:
-        import os
-        choice = os.environ.get("CTPU_EDDSA", "auto")
-        if choice == "auto":
-            # standalone the kernel only matches the XLA path (28.5 vs
-            # 28.2 ms @512), but INSIDE rollup_main_lanes the XLA scans
-            # spill carries to HBM and cost 54ms; the fused kernel cuts
-            # the full lanes step 171ms -> 118ms on v5e.
-            choice = ("pallas" if jax.default_backend() == "tpu"
-                      else "xla")
-        _EDDSA_BACKEND = choice
-    return _EDDSA_BACKEND
-
-
 def eddsa_poseidon_verify(enabled, ax, ay, s, r8x, r8y, msg):
     """Batched circomlib `EdDSAPoseidonVerifier`:
     checks S*B8 == R8 + Poseidon(R8x,R8y,Ax,Ay,M)*A when enabled.
@@ -316,16 +294,6 @@ def eddsa_poseidon_verify(enabled, ax, ay, s, r8x, r8y, msg):
     All field inputs canonical (16, *batch); enabled (batch,) bool/0-1.
     Returns ok (batch,) bool (True wherever disabled)."""
     hm = poseidon([r8x, r8y, ax, ay, msg])
-    be = _eddsa_backend()
-    if be in ("pallas", "interpret"):
-        from .pallas_eddsa import eddsa_ok_mont
-        coords = fr.to_mont(jnp.concatenate([ax, ay, r8x, r8y], axis=-1))
-        n = ax.shape[-1]
-        okp = eddsa_ok_mont(
-            coords[..., 0:n], coords[..., n:2 * n], s,
-            coords[..., 2 * n:3 * n], coords[..., 3 * n:4 * n], hm,
-            interpret=(be == "interpret"))
-        return okp | ~enabled.astype(jnp.bool_)
     s_bits = fr.bits_le(s, 253)
     hm_bits = fr.bits_le(hm, 254)
     # one batched to_mont for all four affine coordinates (4x fewer

@@ -3,7 +3,7 @@
 These replicate the reference's library gadgets as array programs:
   * DecodeFloatBin  — src/lib/decode-float.circom:12-44
   * ComputeFee      — src/compute-fee.circom:12-94 (+ feeShiftTable)
-  * Mux256          — src/lib/mux256.circom:10-52 (a gather on TPU)
+  * Mux256          — src/lib/mux256.circom:10-52 (a gather on the device)
   * BitsCompressed2AySign — src/lib/utils-bjj.circom:12-28
   * Num2Bits range semantics (a `bits_le` plus an explicit width check,
     the algebraic equivalent of circom's bit-decomposition constraints)
@@ -96,7 +96,7 @@ def compute_fee(fee_sel: jnp.ndarray, amount: jnp.ndarray,
 
 def mux256(sel: jnp.ndarray, table: jnp.ndarray) -> jnp.ndarray:
     """256-way select (src/lib/mux256.circom:10-52 builds this from 17
-    Mux4s; on TPU it is one gather). sel: (batch,) uint32 in 0..255;
+    Mux4s; on the device it is one gather). sel: (batch,) uint32 in 0..255;
     table: (256, 16) uint32 limb rows (host constants) or
     (256, 16, *batch). Returns (16, *batch)."""
     if table.ndim == 2:

@@ -69,31 +69,12 @@ def _mix(state, Mm, t):
     return fr.sum_list([prod[:, :, j] for j in range(t)])
 
 
-def _backend() -> str:
-    """Poseidon backend: 'pallas' (TPU fused kernel), 'xla' (portable
-    scan), or 'interpret' (pallas interpreter, for CPU testing).
-    Resolved once from $CTPU_POSEIDON (auto -> pallas on TPU)."""
-    global _BACKEND
-    if _BACKEND is None:
-        import os
-        choice = os.environ.get("CTPU_POSEIDON", "auto")
-        if choice == "auto":
-            choice = ("pallas" if jax.default_backend() == "tpu"
-                      else "xla")
-        _BACKEND = choice
-    return _BACKEND
-
-
-_BACKEND = None
-
-
 def permute_mont_xla(state_m: jnp.ndarray) -> jnp.ndarray:
     """Full Poseidon permutation; state (16, t, B) in Montgomery form.
 
     One scan over all RF+RP rounds; partial rounds apply the S-box to
-    lane 0 only via a mask (the extra pow5 work on masked lanes is free
-    on the VPU — lanes are parallel — and keeps the compiled loop
-    singular)."""
+    lane 0 only via a mask (the extra pow5 work on masked lanes runs in
+    parallel with lane 0's and keeps the compiled loop singular)."""
     t = state_m.shape[1]
     Cm, is_full, Mm = _device_constants(t)
 
@@ -123,21 +104,15 @@ def _ffi_constants(t: int):
 
 
 def permute_mont(state_m: jnp.ndarray) -> jnp.ndarray:
-    be = _backend()
-    if be == "mxu":
-        from .poseidon_mxu import permute_mont_mxu
-        return permute_mont_mxu(state_m)
-    if be == "xla":
-        from ..field import fr_ffi
-        if fr_ffi.enabled():
-            # CPU: the whole permutation is ONE custom call — the
-            # compile-mass collapse that keeps the multichip dryrun and
-            # the CPU test suite inside budget (VERDICT r3 task 1)
-            t = state_m.shape[1]
-            return fr_ffi.poseidon_permute_mont(state_m, *_ffi_constants(t))
-        return permute_mont_xla(state_m)
-    from .pallas_poseidon import permute_mont as permute_pallas
-    return permute_pallas(state_m, interpret=(be == "interpret"))
+    """Poseidon permutation, (16, t, B) Montgomery in/out, by the
+    implementation utils/backend.py picks for this platform."""
+    from ..field import fr_ffi
+    if fr_ffi.enabled():
+        # the whole permutation is ONE custom call — the compile-mass
+        # collapse that keeps the full batch's compile inside budget
+        t = state_m.shape[1]
+        return fr_ffi.poseidon_permute_mont(state_m, *_ffi_constants(t))
+    return permute_mont_xla(state_m)
 
 
 def poseidon(inputs: list[jnp.ndarray]) -> jnp.ndarray:

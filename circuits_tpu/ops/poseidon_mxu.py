@@ -1,23 +1,22 @@
-"""Poseidon permutation with MXU (matmul) limb arithmetic — opt-in backend.
+"""Poseidon permutation with matmul limb arithmetic — not on the main path.
 
 The jaxite-style trick scaled to BN254: field elements as 32 8-bit limbs;
 every multiply-by-constant becomes a banded matmul with bf16 operands
 (integers <= 255 are exact in bf16) and f32 accumulation (column sums
-<= t*32*255^2 < 2^24 stay exact) — full-rate MXU work. Montgomery
-reduction is two more banded matmuls (by N' = -p^-1 mod 2^256 and by p)
-plus log-convergent carry passes on the VPU. Only the S-box (variable x
-variable) stays on the VPU, via the existing 16-bit-limb CIOS path.
+<= t*32*255^2 < 2^24 stay exact), so the mix runs on the matrix units.
+Montgomery reduction is two more banded matmuls (by N' = -p^-1 mod 2^256
+and by p) plus log-convergent carry passes. Only the S-box (variable x
+variable) stays on the 16-bit-limb CIOS path.
 
 Per round the MDS mix of ALL t outputs is ONE (B, t*32) @ (t*32, t*63)
 matmul; reductions batch as (B*t, 32) matmuls. Op counts per t=3
-permutation: VPU multiplies drop from ~828 field muls to ~243 (S-boxes
-only) — the mix mass moves to the MXU.
+permutation: elementwise multiplies drop from ~828 field muls to ~243
+(S-boxes only) — the mix mass moves to the matrix units.
 
-Bit-exact vs the scan/pallas paths (tests/test_poseidon_mxu.py runs the
-whole permutation against poseidon_py on CPU — matmul arithmetic is
-identical on every backend). Select with CTPU_POSEIDON=mxu; the
-default TPU backend remains the Pallas VPU kernel until this one is
-measured faster end-to-end (scripts/exp_mxu_perm.py).
+Bit-exact vs the scan path (tests/test_poseidon_mxu.py runs the whole
+permutation against poseidon_py on CPU — the arithmetic is exact on
+every backend). Nothing selects it; whether it stays is decided by
+measuring it on the card in the Poseidon layer.
 
 Reference context: replaces the ffiasm x86 field inner loop
 (/root/reference/tools/helpers/actions.js:207-229) for the hash that
@@ -156,10 +155,10 @@ def _to8(x16):
 
 
 def _pow5_16(x16):
-    """x^5 in the Montgomery domain on the 16-bit-limb VPU path."""
-    x2 = fr.mont_mul_xla(x16, x16)
-    x4 = fr.mont_mul_xla(x2, x2)
-    return fr.mont_mul_xla(x4, x16)
+    """x^5 in the Montgomery domain on the 16-bit-limb path."""
+    x2 = fr.mont_mul_compact(x16, x16)
+    x4 = fr.mont_mul_compact(x2, x2)
+    return fr.mont_mul_compact(x4, x16)
 
 
 def permute_mont_mxu(state_m: jnp.ndarray) -> jnp.ndarray:

@@ -4,8 +4,8 @@ Used by HashInputs (src/hash-inputs.circom:111-177) and Withdraw
 (src/withdraw.circom:132-175): one SHA-256 over the packed public-input
 bitstring, out[0..255] MSB-first.
 
-TPU formulation: bits are packed into uint32 words (32x fewer lanes of
-work than circomlib's bit-level circuit) and the compression runs as a
+Formulation: bits are packed into uint32 words (32x fewer lanes of work
+than circomlib's bit-level circuit) and the compression runs as a
 `lax.scan` over 512-bit blocks, batched over the witness lanes.
 """
 
@@ -44,25 +44,6 @@ _H0 = np.array([
 
 def _rotr(x, n):
     return (x >> np.uint32(n)) | (x << np.uint32(32 - n))
-
-
-_BACKEND = None
-
-
-def _backend() -> str:
-    """SHA-256 chain backend: 'pallas' (TPU fused-rounds kernel),
-    'xla' (portable scan), or 'interpret' (pallas interpreter, CPU
-    testing). Resolved once from $CTPU_SHA (auto -> pallas on TPU);
-    read at first use, matching ops/poseidon._backend."""
-    global _BACKEND
-    if _BACKEND is None:
-        import os
-        choice = os.environ.get("CTPU_SHA", "auto")
-        if choice == "auto":
-            choice = ("pallas" if jax.default_backend() == "tpu"
-                      else "xla")
-        _BACKEND = choice
-    return _BACKEND
 
 
 def _compress_block(h, w16):
@@ -114,14 +95,6 @@ def sha256_bits(bits: jnp.ndarray) -> jnp.ndarray:
         # the measured ~0.2 ms/thunk dispatch cost was the execution
         # wall of the multichip dryrun (round-4 diagnosis)
         hstack = fr_ffi.sha256_blocks(words)
-    elif _backend() in ("pallas", "interpret"):
-        # TPU: the 823-step scan below measured 62.6 ms at the
-        # production shape (one width-1 chain on a 8x128-wide VPU);
-        # the fused-rounds kernel + wide out-of-kernel message schedule
-        # replaces it (see ops/pallas_sha256.py)
-        from .pallas_sha256 import sha256_chain
-        hstack = sha256_chain(words, nblocks,
-                              interpret=(_backend() == "interpret"))
     else:
         warr = words.reshape((nblocks, 16) + bshape)
         h0 = tuple(jnp.full(bshape, v, dtype=jnp.uint32) for v in _H0)

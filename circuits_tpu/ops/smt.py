@@ -6,9 +6,9 @@ instances per RollupTx + one per FeeTx (reference:
 
 Data-dependent tree topology (NOP / UPDATE / INSERT / DELETE, variable
 proof depth) is handled exactly the way the circuit does it algebraically:
-a fixed nLevels iteration with per-lane state masks — which is also the
-TPU-native formulation (no divergent control flow; everything is a masked
-scan over levels, batched over the tx lanes).
+a fixed nLevels iteration with per-lane state masks (no divergent
+control flow; everything is a masked scan over levels, batched over the
+tx lanes).
 
 State machine (top-down), mirroring circomlib SMTProcessorSM:
   top   — above the action level, proof hashes with the given sibling
@@ -56,8 +56,7 @@ def processor_chains(siblings, old_key, old_value, is_old0,
     bottom-up hash chains. Returns (computed_old, computed_new,
     enabled) — the caller checks computed_old against its
     old_root and muxes the output. Split out so independent processor
-    instances (the two per RollupTx) can run as ONE wider batch / one
-    Pallas launch: the chains read only the proof data, never the root."""
+    instances (the two per RollupTx) can run as ONE wider batch: the chains read only the proof data, never the root."""
     n = siblings.shape[0]
     bshape = old_key.shape[1:]
     fnc0 = fnc0.astype(jnp.bool_)
@@ -131,8 +130,8 @@ def processor_chains(siblings, old_key, old_value, is_old0,
 
     # --- bottom-up hashing chains (lax.scan over levels). The four hash0
     # instances of one level (old chain, new chain, new1 pair, bot pair)
-    # run as ONE poseidon call on a 4x batch — fewer nested scans to
-    # compile, 4x wider lanes on the VPU. ---
+    # run as ONE poseidon call on a wider batch — fewer nested scans to
+    # compile, more lanes per launch. ---
     nlimb = old_key.shape[0]
     bsz = 1
     for d in bshape:
@@ -168,29 +167,14 @@ def processor_chains(siblings, old_key, old_value, is_old0,
         return (old_up, new_up), None
 
     # levels processed bottom-up: reverse all per-level arrays
-    from .poseidon import _backend
-    be = _backend()
-    if be in ("pallas", "interpret") and len(bshape) == 1:
-        # fused VMEM kernel for the whole level chain (hot path on TPU)
-        from .pallas_smt import processor_chain
-        masks = jnp.stack([jnp.stack(st_top), jnp.stack(st_old0),
-                           jnp.stack(st_bot), jnp.stack(st_new1),
-                           jnp.stack(st_upd)], axis=1)  # (n, 5, B)
-        old_child, new_child = processor_chain(
-            jnp.flip(siblings, axis=0),
-            jnp.flip(new_bits, axis=0),
-            jnp.flip(masks, axis=0),
-            old1leaf, new1leaf, new1h, interpret=(be == "interpret"))
-    else:
-        xs = (jnp.flip(siblings, axis=0),
-              jnp.flip(new_bits, axis=0).astype(jnp.uint32),
-              jnp.flip(jnp.stack(st_top), axis=0),
-              jnp.flip(jnp.stack(st_old0), axis=0),
-              jnp.flip(jnp.stack(st_bot), axis=0),
-              jnp.flip(jnp.stack(st_new1), axis=0),
-              jnp.flip(jnp.stack(st_upd), axis=0))
-        (old_child, new_child), _ = jax.lax.scan(level_body, (zero, zero),
-                                                 xs)
+    xs = (jnp.flip(siblings, axis=0),
+          jnp.flip(new_bits, axis=0).astype(jnp.uint32),
+          jnp.flip(jnp.stack(st_top), axis=0),
+          jnp.flip(jnp.stack(st_old0), axis=0),
+          jnp.flip(jnp.stack(st_bot), axis=0),
+          jnp.flip(jnp.stack(st_new1), axis=0),
+          jnp.flip(jnp.stack(st_upd), axis=0))
+    (old_child, new_child), _ = jax.lax.scan(level_body, (zero, zero), xs)
 
     computed_old = fr.select(f_delete, new_child, old_child)
     computed_new = fr.select(f_delete, old_child, new_child)

@@ -1,14 +1,14 @@
 """Tx-lane sharding of RollupMain over a 1-D device mesh via shard_map.
 
-Design (TPU-native replacement for the reference's pthread witness
-parallelism, tools/helpers/actions.js:41 + circom_runtime threads):
+Design (replacement for the reference's pthread witness parallelism,
+tools/helpers/actions.js:41 + circom_runtime threads):
 
-  * mesh axis "tx": each chip evaluates a contiguous slice of tx lanes —
+  * mesh axis "tx": each device evaluates a contiguous slice of tx lanes —
     decode, EdDSA, balance update, both SMT processors — with zero
     communication (the im chains arrive as per-lane inputs, the
     reference's own parallelization contract,
     src/rollup-main.circom:93-99).
-  * Cross-lane reads are EXPLICIT ICI collectives, not GSPMD inference:
+  * Cross-lane reads are EXPLICIT collectives, not GSPMD inference:
       - rq-link neighbour windows (±3/±4 lanes): all_gather of the three
         small per-tx arrays, windows sliced per shard;
       - constraint verdict: psum of per-shard failure counts
@@ -17,8 +17,9 @@ parallelism, tools/helpers/actions.js:41 + circom_runtime threads):
       - the global tail (fee txs + SHA256 of the public inputs) reads
         every lane's DA bitstring: all_gather, then replicated compute.
     Manual SPMD (shard_map) keeps the per-shard program identical to the
-    single-chip one, so the native FFI field kernels on the CPU backend
-    and the Pallas kernels on TPU both partition trivially.
+    single-device one, so the native FFI field kernels on the CPU backend
+    and the GPU kernels both partition trivially. A 1-D mesh suits
+    NVLink's all-to-all links: no torus to map onto.
   * im chains of length T-1 are padded host-side to per-lane length-T
     prev/expected arrays (models.rollup_main.build_chains) so every
     sharded array has the lane axis divisible by the mesh.
@@ -150,26 +151,30 @@ def make_sharded_rollup_main(mesh: Mesh, n_tx: int, n_levels: int,
 
     fn = partial(_sharded_step, n_tx=n_tx, t_loc=t_loc, n_levels=n_levels,
                  max_l1_tx=max_l1_tx, max_fee_tx=max_fee_tx)
+    out_specs = (dict(
+        hash_global_inputs=P(), new_state_root=P(), new_exit_root=P(),
+        new_last_idx=P(), acc_fee_out=P()), P())
 
-    def run(packed: dict):
-        chains = rm.build_chains(packed, n_tx, max_fee_tx)
+    @jax.jit
+    def step(packed: dict, chains: dict):
         in_specs = (
             {k: _spec(_LANE_DIM.get(k), v.ndim)
              for k, v in packed.items()},
             {k: _spec(_CHAIN_LANE_DIM[k], v.ndim)
              for k, v in chains.items()},
         )
-        out_specs = (dict(
-            hash_global_inputs=P(), new_state_root=P(), new_exit_root=P(),
-            new_last_idx=P(), acc_fee_out=P()), P())
-        sharded = jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
-                                out_specs=out_specs, check_vma=False)
+        return jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
+                             out_specs=out_specs, check_vma=False)(
+            packed, chains)
+
+    def run(packed: dict):
+        chains = rm.build_chains(packed, n_tx, max_fee_tx)
         placed = {k: jax.device_put(
             v, NamedSharding(mesh, _spec(_LANE_DIM.get(k), v.ndim)))
             for k, v in packed.items()}
         chains_placed = {k: jax.device_put(
             v, NamedSharding(mesh, _spec(_CHAIN_LANE_DIM[k], v.ndim)))
             for k, v in chains.items()}
-        return jax.jit(sharded)(placed, chains_placed)
+        return step(placed, chains_placed)
 
     return run

@@ -9,7 +9,7 @@ reference's JS dependency stack:
     ethereum private key; e.g. test/lib/hash-state.test.js:36 hard-codes
     the address of private key 1).
 
-Pure Python; all host-side (never on the TPU compute path).
+Pure Python; all host-side (never on the device compute path).
 """
 
 from __future__ import annotations

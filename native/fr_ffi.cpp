@@ -5,127 +5,27 @@
 // module size (measured: RollupTx alone ~250s / 93k HLO lines with the
 // mul inlined as limb ops). On CPU each field op becomes ONE custom-call
 // instruction backed by this library — compile collapses, and the 4x64
-// __int128 CIOS is also faster at runtime than XLA's generated 16x16
-// limb code. The TPU path is untouched (pure XLA/Pallas limb kernels in
-// circuits_tpu/field/fr.py); this is the CPU analogue of the reference's
-// ffiasm-generated x86-64 field library
+// CIOS is also faster at runtime than XLA's generated 16x16 limb code.
+// fr_cuda.cu registers the same targets for the GPU; both run the
+// per-lane code of fr_device.h. This is the CPU analogue of the
+// reference's ffiasm-generated x86-64 field library
 // (reference: tools/helpers/actions.js:207-229).
 //
 // Data layout: batch-major uint32 arrays of shape (N, 16) — 16
 // little-endian 16-bit limbs per element, batch dim leading so the
 // targets can be registered as batch-partitionable under GSPMD.
 
+#include <cstddef>
 #include <cstdint>
-#include <cstring>
 
+#include "fr_device.h"
 #include "xla/ffi/api/ffi.h"
 
 namespace ffi = xla::ffi;
-
-typedef unsigned __int128 u128;
-typedef uint64_t u64;
-typedef uint32_t u32;
-
-static const u64 Pl[4] = {
-    0x43e1f593f0000001ULL, 0x2833e84879b97091ULL,
-    0xb85045b68181585dULL, 0x30644e72e131a029ULL};
-static const u64 N0 = 0xc2e1f593efffffffULL;
-
-static inline bool geq(const u64* a, const u64* b) {
-    for (int i = 3; i >= 0; --i) {
-        if (a[i] > b[i]) return true;
-        if (a[i] < b[i]) return false;
-    }
-    return true;
-}
-
-static inline void sub4(u64* r, const u64* a, const u64* b) {
-    u128 borrow = 0;
-    for (int i = 0; i < 4; ++i) {
-        u128 d = (u128)a[i] - b[i] - borrow;
-        r[i] = (u64)d;
-        borrow = (d >> 64) ? 1 : 0;
-    }
-}
-
-// CIOS Montgomery multiplication: r = a*b*R^-1 mod p (R = 2^256)
-static inline void mont_mul4(u64* r, const u64* a, const u64* b) {
-    u64 t[6] = {0, 0, 0, 0, 0, 0};
-    for (int i = 0; i < 4; ++i) {
-        u128 carry = 0;
-        for (int j = 0; j < 4; ++j) {
-            u128 s = (u128)t[j] + (u128)a[j] * b[i] + carry;
-            t[j] = (u64)s;
-            carry = s >> 64;
-        }
-        u128 s = (u128)t[4] + carry;
-        t[4] = (u64)s;
-        t[5] = (u64)(s >> 64);
-
-        u64 m = t[0] * N0;
-        carry = ((u128)t[0] + (u128)m * Pl[0]) >> 64;
-        for (int j = 1; j < 4; ++j) {
-            u128 s2 = (u128)t[j] + (u128)m * Pl[j] + carry;
-            t[j - 1] = (u64)s2;
-            carry = s2 >> 64;
-        }
-        s = (u128)t[4] + carry;
-        t[3] = (u64)s;
-        t[4] = t[5] + (u64)(s >> 64);
-    }
-    if (t[4] || geq(t, Pl)) {
-        sub4(r, t, Pl);
-    } else {
-        memcpy(r, t, 32);
-    }
-}
-
-static inline void add_mod4(u64* r, const u64* a, const u64* b) {
-    u128 carry = 0;
-    u64 t[5];
-    for (int i = 0; i < 4; ++i) {
-        u128 s = (u128)a[i] + b[i] + carry;
-        t[i] = (u64)s;
-        carry = s >> 64;
-    }
-    t[4] = (u64)carry;
-    if (t[4] || geq(t, Pl)) {
-        sub4(r, t, Pl);
-    } else {
-        memcpy(r, t, 32);
-    }
-}
-
-static inline void sub_mod4(u64* r, const u64* a, const u64* b) {
-    if (geq(a, b)) {
-        sub4(r, a, b);
-    } else {
-        u64 t[4];
-        sub4(t, b, a);       // b - a
-        if (t[0] | t[1] | t[2] | t[3]) {
-            sub4(r, Pl, t);  // p - (b - a)
-        } else {
-            memset(r, 0, 32);
-        }
-    }
-}
-
-// (N,16) uint32 16-bit limbs <-> 4x64
-static inline void load_fe(u64* v, const u32* limbs) {
-    for (int j = 0; j < 4; ++j) {
-        v[j] = (u64)limbs[4 * j] | ((u64)limbs[4 * j + 1] << 16) |
-               ((u64)limbs[4 * j + 2] << 32) | ((u64)limbs[4 * j + 3] << 48);
-    }
-}
-
-static inline void store_fe(u32* limbs, const u64* v) {
-    for (int j = 0; j < 4; ++j) {
-        limbs[4 * j] = (u32)(v[j] & 0xFFFF);
-        limbs[4 * j + 1] = (u32)((v[j] >> 16) & 0xFFFF);
-        limbs[4 * j + 2] = (u32)((v[j] >> 32) & 0xFFFF);
-        limbs[4 * j + 3] = (u32)((v[j] >> 48) & 0xFFFF);
-    }
-}
+using frdev::u32;
+using frdev::u64;
+using frdev::load_fe;
+using frdev::store_fe;
 
 typedef void (*binop4)(u64*, const u64*, const u64*);
 
@@ -149,17 +49,17 @@ static ffi::Error binop_impl(const ffi::Buffer<ffi::U32>& a,
 static ffi::Error FrMontMulImpl(ffi::Buffer<ffi::U32> a,
                                 ffi::Buffer<ffi::U32> b,
                                 ffi::ResultBuffer<ffi::U32> out) {
-    return binop_impl(a, b, out, mont_mul4);
+    return binop_impl(a, b, out, frdev::mont_mul4);
 }
 
 static ffi::Error FrAddImpl(ffi::Buffer<ffi::U32> a, ffi::Buffer<ffi::U32> b,
                             ffi::ResultBuffer<ffi::U32> out) {
-    return binop_impl(a, b, out, add_mod4);
+    return binop_impl(a, b, out, frdev::add_mod4);
 }
 
 static ffi::Error FrSubImpl(ffi::Buffer<ffi::U32> a, ffi::Buffer<ffi::U32> b,
                             ffi::ResultBuffer<ffi::U32> out) {
-    return binop_impl(a, b, out, sub_mod4);
+    return binop_impl(a, b, out, frdev::sub_mod4);
 }
 
 // a^e mod p for a fixed little-endian exponent passed as a u32 bit array
@@ -169,23 +69,9 @@ static ffi::Error FrPowImpl(ffi::Buffer<ffi::U32> a,
                             ffi::Buffer<ffi::U32> ebits,
                             ffi::ResultBuffer<ffi::U32> out) {
     const size_t n = a.element_count() / 16;
-    const size_t nbits = ebits.element_count();
-    const u32* ap = a.typed_data();
-    const u32* ep = ebits.typed_data();
-    u32* op_ = out->typed_data();
-    static const u64 R1l[4] = {
-        0xac96341c4ffffffbULL, 0x36fc76959f60cd29ULL,
-        0x666ea36f7879462eULL, 0x0e0a77c19a07df2fULL};
-    for (size_t i = 0; i < n; ++i) {
-        u64 base[4], acc[4];
-        load_fe(base, ap + 16 * i);
-        memcpy(acc, R1l, 32);  // Montgomery one
-        for (size_t k = 0; k < nbits; ++k) {
-            if (ep[k]) mont_mul4(acc, acc, base);
-            mont_mul4(base, base, base);
-        }
-        store_fe(op_ + 16 * i, acc);
-    }
+    for (size_t i = 0; i < n; ++i)
+        frdev::pow_lane(out->typed_data() + 16 * i, a.typed_data() + 16 * i,
+                        ebits.typed_data(), ebits.element_count());
     return ffi::Error::Success();
 }
 
@@ -201,15 +87,6 @@ static ffi::Error FrPowImpl(ffi::Buffer<ffi::U32> a,
 // state: (N, t, 16) u32 Montgomery, updated out-of-place.
 // ---------------------------------------------------------------------
 
-static const int kRF = 8;
-
-static inline void pow5_4(u64* r, const u64* a) {
-    u64 a2[4], a4[4];
-    mont_mul4(a2, a, a);
-    mont_mul4(a4, a2, a2);
-    mont_mul4(r, a4, a);
-}
-
 static ffi::Error FrPoseidonImpl(ffi::Buffer<ffi::U32> state,
                                  ffi::Buffer<ffi::U32> cbuf,
                                  ffi::Buffer<ffi::U32> mbuf,
@@ -217,52 +94,20 @@ static ffi::Error FrPoseidonImpl(ffi::Buffer<ffi::U32> state,
     const size_t mcount = mbuf.element_count() / 16;  // t*t
     size_t t = 1;
     while (t * t < mcount) ++t;
-    if (t * t != mcount || t < 2 || t > 17)
+    if (t * t != mcount || t < 2 || t > (size_t)frdev::kMaxT)
         return ffi::Error(ffi::ErrorCode::kInvalidArgument,
                           "bad MDS operand size");
     const size_t nc = cbuf.element_count() / 16;      // (RF+rp)*t
-    const int nrounds = (int)(nc / t);
-    const int rp = nrounds - kRF;
-    if ((size_t)nrounds * t != nc || rp < 0 || nrounds > 80)
+    const size_t nrounds = nc / t;
+    if (nrounds * t != nc || nrounds < (size_t)frdev::kRF || nrounds > 80)
         return ffi::Error(ffi::ErrorCode::kInvalidArgument,
                           "bad round-constant operand size");
     const size_t n = state.element_count() / (16 * t);
-
-    // unpack constants once per call (tiny: <= 73*t + t*t elements)
-    u64 C[80 * 17][4];
-    u64 M[17 * 17][4];
-    const u32* cp = cbuf.typed_data();
-    const u32* mp = mbuf.typed_data();
-    for (size_t i = 0; i < nc; ++i) load_fe(C[i], cp + 16 * i);
-    for (size_t i = 0; i < mcount; ++i) load_fe(M[i], mp + 16 * i);
-
-    const u32* sp = state.typed_data();
-    u32* op_ = out->typed_data();
-    u64 st[17][4], ns[17][4];
-    for (size_t k = 0; k < n; ++k) {
-        for (size_t i = 0; i < t; ++i) load_fe(st[i], sp + 16 * (k * t + i));
-        for (int r = 0; r < nrounds; ++r) {
-            for (size_t i = 0; i < t; ++i)
-                add_mod4(st[i], st[i], C[r * t + i]);
-            bool full = (r < kRF / 2) || (r >= kRF / 2 + rp);
-            if (full) {
-                for (size_t i = 0; i < t; ++i) pow5_4(st[i], st[i]);
-            } else {
-                pow5_4(st[0], st[0]);
-            }
-            for (size_t i = 0; i < t; ++i) {
-                u64 acc[4] = {0, 0, 0, 0};
-                for (size_t j = 0; j < t; ++j) {
-                    u64 prod[4];
-                    mont_mul4(prod, M[i * t + j], st[j]);
-                    add_mod4(acc, acc, prod);
-                }
-                memcpy(ns[i], acc, 32);
-            }
-            memcpy(st, ns, t * 32);
-        }
-        for (size_t i = 0; i < t; ++i) store_fe(op_ + 16 * (k * t + i), st[i]);
-    }
+    for (size_t k = 0; k < n; ++k)
+        frdev::poseidon_lane(out->typed_data() + 16 * t * k,
+                             state.typed_data() + 16 * t * k, (int)t,
+                             (int)nrounds, cbuf.typed_data(),
+                             mbuf.typed_data());
     return ffi::Error::Success();
 }
 
@@ -281,66 +126,22 @@ XLA_FFI_DEFINE_HANDLER_SYMBOL(
 // word-packed XLA formulation lowers to ~2000 unfused u32[1] thunks per
 // block on XLA:CPU (measured ~0.2 ms/thunk on this host class -> ~3 s
 // per block). One custom call per digest removes that wall from the
-// multichip dryrun and the CPU test suite. TPU keeps the XLA path.
+// multichip dryrun and the CPU test suite.
 // words: (N, nblocks*16) u32 big-endian message words (pre-padded);
 // out: (N, 8) u32 digest words.
 // ---------------------------------------------------------------------
 
-static const u32 kSha256K[64] = {
-    0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b, 0x59f111f1,
-    0x923f82a4, 0xab1c5ed5, 0xd807aa98, 0x12835b01, 0x243185be, 0x550c7dc3,
-    0x72be5d74, 0x80deb1fe, 0x9bdc06a7, 0xc19bf174, 0xe49b69c1, 0xefbe4786,
-    0x0fc19dc6, 0x240ca1cc, 0x2de92c6f, 0x4a7484aa, 0x5cb0a9dc, 0x76f988da,
-    0x983e5152, 0xa831c66d, 0xb00327c8, 0xbf597fc7, 0xc6e00bf3, 0xd5a79147,
-    0x06ca6351, 0x14292967, 0x27b70a85, 0x2e1b2138, 0x4d2c6dfc, 0x53380d13,
-    0x650a7354, 0x766a0abb, 0x81c2c92e, 0x92722c85, 0xa2bfe8a1, 0xa81a664b,
-    0xc24b8b70, 0xc76c51a3, 0xd192e819, 0xd6990624, 0xf40e3585, 0x106aa070,
-    0x19a4c116, 0x1e376c08, 0x2748774c, 0x34b0bcb5, 0x391c0cb3, 0x4ed8aa4a,
-    0x5b9cca4f, 0x682e6ff3, 0x748f82ee, 0x78a5636f, 0x84c87814, 0x8cc70208,
-    0x90befffa, 0xa4506ceb, 0xbef9a3f7, 0xc67178f2};
-
-static inline u32 rotr32(u32 x, int n) { return (x >> n) | (x << (32 - n)); }
-
 static ffi::Error Sha256BlocksImpl(ffi::Buffer<ffi::U32> words,
                                    ffi::ResultBuffer<ffi::U32> out) {
     const size_t total = words.element_count();
-    u32* op_ = out->typed_data();
     const size_t n = out->element_count() / 8;
     if (n == 0 || total % (16 * n) != 0)
         return ffi::Error(ffi::ErrorCode::kInvalidArgument,
                           "words must be (N, nblocks*16)");
     const size_t nblocks = total / (16 * n);
-    const u32* wp = words.typed_data();
-    for (size_t k = 0; k < n; ++k) {
-        u32 h[8] = {0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
-                    0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19};
-        for (size_t blk = 0; blk < nblocks; ++blk) {
-            u32 w[64];
-            memcpy(w, wp + (k * nblocks + blk) * 16, 64);
-            for (int i = 16; i < 64; ++i) {
-                u32 s0 = rotr32(w[i - 15], 7) ^ rotr32(w[i - 15], 18) ^
-                         (w[i - 15] >> 3);
-                u32 s1 = rotr32(w[i - 2], 17) ^ rotr32(w[i - 2], 19) ^
-                         (w[i - 2] >> 10);
-                w[i] = w[i - 16] + s0 + w[i - 7] + s1;
-            }
-            u32 a = h[0], b = h[1], c = h[2], d = h[3];
-            u32 e = h[4], f = h[5], g = h[6], hh = h[7];
-            for (int i = 0; i < 64; ++i) {
-                u32 s1 = rotr32(e, 6) ^ rotr32(e, 11) ^ rotr32(e, 25);
-                u32 ch = (e & f) ^ (~e & g);
-                u32 t1 = hh + s1 + ch + kSha256K[i] + w[i];
-                u32 s0 = rotr32(a, 2) ^ rotr32(a, 13) ^ rotr32(a, 22);
-                u32 maj = (a & b) ^ (a & c) ^ (b & c);
-                u32 t2 = s0 + maj;
-                hh = g; g = f; f = e; e = d + t1;
-                d = c; c = b; b = a; a = t1 + t2;
-            }
-            h[0] += a; h[1] += b; h[2] += c; h[3] += d;
-            h[4] += e; h[5] += f; h[6] += g; h[7] += hh;
-        }
-        memcpy(op_ + 8 * k, h, 32);
-    }
+    for (size_t k = 0; k < n; ++k)
+        frdev::sha256_lane(out->typed_data() + 8 * k,
+                           words.typed_data() + 16 * nblocks * k, nblocks);
     return ffi::Error::Success();
 }
 

@@ -4,7 +4,7 @@
 // (reference: tools/helpers/actions.js:207-229 builds fr.asm with nasm)
 // for the *host* half of the framework: the batch builder's sequential
 // SMT root chain is Poseidon-bound, and Python bigints are ~100x slower
-// than 4x64-limb Montgomery with __int128. The TPU compute path uses the
+// than 4x64-limb Montgomery with __int128. The device compute path uses the
 // limb kernels in circuits_tpu/field; this library only serves host code
 // (builder, oracle checks) via ctypes.
 //

@@ -1,9 +1,9 @@
 """Virtual-mesh scaling: the sharded witness step at 1/2/4/8 devices.
 
-On this 2-core host the 8 virtual CPU devices share silicon, so the
-numbers measure SPMD/collective overhead and correctness of the scaling
-path, NOT multi-chip speedup (real multi-chip hardware is unavailable —
-SCALING.md §3). nTx is fixed; the per-device lane slice shrinks as the
+The 8 virtual CPU devices share one host's cores, so the numbers
+measure SPMD/collective overhead and correctness of the scaling path,
+NOT multi-card speedup (`chip_smoke.py --cards 4` runs the real mesh).
+nTx is fixed; the per-device lane slice shrinks as the
 mesh grows, so flat wall-time = perfect weak-scaling overhead profile.
 
 Usage: python scripts/exp_mesh_scaling.py [nTx]

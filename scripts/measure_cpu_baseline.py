@@ -7,7 +7,7 @@ actions.js:114-124,132-146). It ships no recorded throughput numbers
 engine's OWN single-core CPU witness run — the XLA:CPU path with the
 native fr_ffi custom calls (native/fr_ffi.cpp: __int128 CIOS Montgomery,
 whole-Poseidon / whole-SHA256 kernels), pinned to one core — on the same
-(B, 32, 64) lane step the TPU bench times.
+(B, 32, 64) lane step bench.py times.
 
 Writes BASELINE_CPU.json at the repo root; bench.py divides by this
 measured number for vs_baseline instead of the former 1k tx/s estimate.
@@ -49,8 +49,7 @@ NLEV, MFT, REPS = 32, 64, 3
 
 from circuits_tpu.field import fr_ffi  # noqa: E402
 
-fr_ffi._register()
-print(f"platform={jax.devices()[0].platform} fr_ffi={fr_ffi.available} "
+print(f"platform={jax.devices()[0].platform} fr_ffi={fr_ffi.enabled()} "
       f"affinity={sorted(os.sched_getaffinity(0))} B={B}", flush=True)
 
 tiled, tiled_chains = build_tiled_inputs(B, NLEV, MFT, jnp)

@@ -42,7 +42,7 @@ def mark(name):
 
 from circuits_tpu.field import fr_ffi
 
-assert fr_ffi.enabled(), fr_ffi.build_error
+assert fr_ffi.enabled()
 mark("imports + ffi build")
 
 from __graft_entry__ import _build_packed

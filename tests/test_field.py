@@ -2,6 +2,7 @@
 
 import random
 
+import jax
 import numpy as np
 import pytest
 
@@ -52,6 +53,19 @@ def test_mont_mul():
     Rinv = pow(scalar.R, -1, P)
     want = [(x * y * Rinv) % P for x, y in zip(a, b)]
     assert [int(v) for v in got] == want
+
+
+@pytest.mark.parametrize("form", ["unrolled", "compact"])
+def test_mont_mul_xla_forms(form):
+    """Both plain XLA multiply forms (the reference; both platforms run
+    the native custom call) against the Python big-int field."""
+    f = {"unrolled": fr.mont_mul_unrolled, "compact": fr.mont_mul_compact}
+    a = rand_elems(14) + [0, P - 1]
+    b = rand_elems(14) + [P - 1, P - 1]
+    got = fr.unpack_np(jax.jit(f[form])(fr.pack(a), fr.pack(b)))
+    Rinv = pow(scalar.R, -1, P)
+    assert [int(v) for v in got] == [(x * y * Rinv) % P
+                                     for x, y in zip(a, b)]
 
 
 def test_mul_canonical():

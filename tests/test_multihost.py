@@ -29,7 +29,9 @@ def _free_port():
 def test_two_process_mesh():
     # bounded by communicate(timeout=390) below (pytest-timeout absent)
     port = _free_port()
+    # both processes stay on the CPU: never two processes on one card
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["JAX_PLATFORMS"] = "cpu"
     procs = [subprocess.Popen(
         [sys.executable, "-u", str(ROOT / "scripts/multihost_worker.py"),
          str(i), "2", str(port)],

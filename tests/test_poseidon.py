@@ -2,12 +2,14 @@
 
 import random
 
+import jax
 import numpy as np
+import pytest
 
 from circuits_tpu.field import fr
 from circuits_tpu.field.scalar import P
 from circuits_tpu.ops.poseidon_constants import poseidon_py, constants
-from circuits_tpu.ops.poseidon import jposeidon
+from circuits_tpu.ops.poseidon import jposeidon, poseidon
 
 rng = random.Random(7)
 
@@ -53,10 +55,23 @@ def test_device_poseidon_batch_random():
         assert got == want, f"n={n}"
 
 
+@pytest.mark.parametrize("t", [3, 4, 5, 6, 7])
+def test_xla_poseidon_vs_host(xla_backend, t):
+    """The plain XLA reference permutation (no native custom call),
+    reached through utils/backend.xla_reference, against the host
+    Poseidon."""
+    B = 4
+    cols = [[rng.randint(0, P - 1) for _ in range(B)] for _ in range(t - 1)]
+    got = jax.jit(lambda xs: poseidon(xs))([fr.pack(c) for c in cols])
+    want = [poseidon_py([cols[i][b] for i in range(t - 1)])
+            for b in range(B)]
+    assert [int(v) for v in fr.unpack_np(got)] == want
+
+
 def test_optimized_schedule_bit_exact():
-    """The sparse partial-round schedule (pallas kernels) must equal the
-    naive circomlib order for every width — checked here in pure Python
-    so the transformation is CI-visible off-TPU."""
+    """The sparse partial-round schedule must equal
+    the naive circomlib order for every width — checked here in pure
+    Python so the transformation is CI-visible off the card."""
     from circuits_tpu.ops.poseidon_constants import optimized_constants
 
     def sbox(x):

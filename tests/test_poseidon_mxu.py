@@ -1,8 +1,7 @@
-"""MXU (matmul-limb) Poseidon backend vs the host oracle — bit-exact.
+"""Matmul-limb Poseidon (ops/poseidon_mxu.py) vs the host oracle — bit-exact.
 
-Matmul arithmetic is identical on CPU and TPU (bf16 inputs, f32
-accumulation, all values exact), so CPU CI pins the backend's
-correctness; TPU measures its speed (scripts/exp_mxu_perm.py)."""
+Its arithmetic is exact on every backend (bf16 inputs, f32
+accumulation, all values < 2^24), so CPU CI pins its correctness."""
 
 import random
 

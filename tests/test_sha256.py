@@ -1,9 +1,7 @@
 """SHA-256 kernel vs hashlib — both backends.
 
-The FFI fast path (default on CPU) and the portable XLA scan path must
-agree with hashlib bit-for-bit. Round 4 added this file after finding
-the op was CI-invisible: no unit test existed, and its XLA formulation
-was the execution wall of the multichip dryrun.
+The native custom call (what both platforms run) and the plain XLA
+reference scan must agree with hashlib bit-for-bit.
 """
 
 import hashlib
@@ -44,21 +42,18 @@ def test_sha256_ffi_vs_hashlib(nbits):
     assert got == [_oracle(m) for m in msgs]
 
 
-@pytest.mark.skipif(jax.default_backend() != "tpu",
-                    reason="the portable XLA scan path lowers to ~2000 "
-                    "unfused u32 thunks per block on XLA:CPU (minutes per "
-                    "digest on this host); it is validated on the real "
-                    "chip by tests/tpu_checks.py")
-def test_sha256_xla_vs_hashlib(monkeypatch):
-    monkeypatch.setenv("CTPU_FR_BACKEND", "xla")
+@pytest.mark.parametrize("nbits", [384, 704])
+def test_sha256_xla_vs_hashlib(xla_backend, nbits):
+    """The plain XLA reference scan, at one and two blocks. Eager: the
+    compiled scan runs ~2000 unfused u32 thunks per block on XLA:CPU
+    (minutes per digest); op-by-op dispatch takes about a second."""
     assert not fr_ffi.enabled()
-    check_sha256_xla_path()
-
-
-def check_sha256_xla_path():
-    """XLA-scan-path SHA256 vs hashlib (shared with tests/tpu_checks.py)."""
-    msgs = [[rng.randrange(2) for _ in range(384)] for _ in range(2)]
-    got = _digest_bits(np.array(msgs, dtype=np.uint32).T)
+    msgs = [[rng.randrange(2) for _ in range(nbits)] for _ in range(2)]
+    bits = jnp.asarray(np.array(msgs, dtype=np.uint32).T)
+    with jax.disable_jit():
+        out = np.asarray(sha256_bits(bits))
+    got = [int("".join(str(b) for b in out[:, k]), 2)
+           for k in range(out.shape[1])]
     assert got == [_oracle(m) for m in msgs]
 
 
